@@ -1,12 +1,12 @@
-"""nanohevc-tpu: a TPU-native HEVC all-intra encoding framework in JAX.
+"""nanohevc-tpu: an HEVC all-intra encoding framework in JAX.
 
 Public API parity: every name exported by the reference package
 (/root/reference/nano_hevc/__init__.py:50-91, 41 names) is re-exported
 here with identical observable behavior.  The single-block functions
 are served by the vectorized numpy oracle (`nanohevc_tpu.ref`) — the
 "CPU numpy path" — while batched device execution lives in
-`nanohevc_tpu.ops` (jnp), `nanohevc_tpu.kernels` (Pallas) and
-`nanohevc_tpu.models` (full-frame pipelines).
+`nanohevc_tpu.ops` (jnp) and `nanohevc_tpu.models` (full-frame
+pipelines).
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,6 @@
 """Host-side block view over a Plane (API parity layer).
 
-API-compatible with /root/reference/nano_hevc/block.py:14-74.  The TPU
+API-compatible with /root/reference/nano_hevc/block.py:14-74.  The device
 compute path never materializes per-block objects — it operates on a
 `(num_blocks, N, N)` tensor produced by `nanohevc_tpu.ops.tiling` —
 but the reference exposes BlockView / iterate_blocks publicly, so they

@@ -17,6 +17,8 @@ import sys
 
 import numpy as np
 
+PLATFORMS = ("auto", "cpu", "gpu")
+
 
 def demo_predictions(height: int, width: int, block_size: int) -> None:
     """DC vs planar demo on the synthetic test frame (device-batched)."""
@@ -466,26 +468,25 @@ def cmd_decode(args: argparse.Namespace) -> None:
 def main(argv: list[str] | None = None) -> None:
     parser = argparse.ArgumentParser(
         prog="nano-hevc-tpu",
-        description="TPU-native HEVC all-intra encoder",
+        description="HEVC all-intra encoder in JAX",
     )
     env_platform = os.environ.get("NANOHEVC_PLATFORM", "auto")
-    if env_platform not in ("auto", "cpu", "tpu"):
+    if env_platform not in PLATFORMS:
         # argparse validates `choices` only for command-line values,
         # not defaults — reject a bad env var with the same clean error
         parser.error(
             f"NANOHEVC_PLATFORM={env_platform!r}: invalid choice "
-            "(choose from 'auto', 'cpu', 'tpu')"
+            f"(choose from {', '.join(map(repr, PLATFORMS))})"
         )
     parser.add_argument(
         "--platform",
-        choices=("auto", "cpu", "tpu"),
+        choices=PLATFORMS,
         default=env_platform,
-        help="JAX backend: auto = the process default (TPU where "
-        "present), cpu = force the host backend (all outputs are "
-        "bit-identical; the codec is integer arithmetic).  Also set "
-        "via NANOHEVC_PLATFORM.  Applied via jax.config.update, which "
-        "works after jax import but before its first backend use — "
-        "i.e. always, for a fresh CLI process.",
+        help="JAX backend: auto = the process default (the GPU where "
+        "one is present), cpu = force the host backend (all outputs "
+        "are bit-identical; the codec is integer arithmetic), gpu = "
+        "require a GPU and fail if none initialises.  Also set via "
+        "NANOHEVC_PLATFORM.",
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
@@ -731,9 +732,20 @@ def main(argv: list[str] | None = None) -> None:
 
     args = parser.parse_args(argv)
     if args.platform != "auto":
+        # Works after jax import but before its first backend use —
+        # i.e. always, for a fresh CLI process.  "gpu" is JAX's own
+        # alias for its CUDA/ROCm backends; it never falls back to CPU.
         import jax
 
         jax.config.update("jax_platforms", args.platform)
+        try:
+            jax.default_backend()
+        except RuntimeError as e:
+            parser.error(f"--platform {args.platform}: no such backend "
+                         f"initialised ({e})")
+    from nanohevc_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     args.func(args)
 
 

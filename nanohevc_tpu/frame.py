@@ -1,7 +1,7 @@
 """Host-side frame data model: Plane / Frame / PackedFrame / FrameBufferPool.
 
 API-compatible with the reference data model
-(/root/reference/nano_hevc/frame.py:16-308).  On TPU, frames live as
+(/root/reference/nano_hevc/frame.py:16-308).  On the device, frames live as
 device arrays produced by `nanohevc_tpu.ops.tiling`; these classes are
 the host staging layer (raw YUV420p bytes <-> numpy planes) and the
 public-API surface.  XLA owns device memory, so PackedFrame /

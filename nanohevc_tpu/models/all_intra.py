@@ -125,8 +125,7 @@ def decide_modes(
     through the real transform/quant/recon chain, rate from the
     calibrated coder model) — requires qp; use_dst/dequant_rescale
     must match the pipeline so the measured distortion is the real
-    one.  Costlier than SATD (full chain x 35) but fully batched on
-    the MXU.
+    one.  Costlier than SATD (full chain x 35) but fully batched.
 
     grid=(nby, nbx) (the raster block-grid shape) additionally charges
     each candidate its MPM signalling cost lambda * mode_bits
@@ -199,10 +198,9 @@ def decide_modes(
         return pred, mode
 
     # 35-mode search, fully batched: all 33 angular predictions come
-    # from ONE MXU einsum against the stacked per-mode weight matrices
-    # (gathers ran 600x slower; per-mode matmuls left ~12 ms of fusion
-    # -boundary overhead), costs are evaluated with a mode axis, and
-    # the winner is applied by a one-hot matmul — no gathers anywhere.
+    # from ONE einsum against the stacked per-mode weight matrices,
+    # costs are evaluated with a mode axis, and the winner is applied
+    # by a one-hot matmul — no gathers anywhere.
     from nanohevc_tpu.ops.angular_tables import angular_weight_matrices
     from nanohevc_tpu.ops.intra import cat_weight_matrices
 
@@ -396,112 +394,6 @@ def encode_plane_full(
     }
 
 
-def encode_plane_fast(
-    plane: jnp.ndarray,
-    qp: int,
-    *,
-    n: int,
-    bit_depth: int = 8,
-    scan: str = "diag",
-    use_dst: bool = False,
-    dequant_rescale: bool = False,
-):
-    """Slab-kernel fast path with the same outputs as encode_plane_full.
-
-    Covers the dc_planar/energy configuration (the reference encoder's
-    decision) for N in {4, 8, 16, 32} and W % N == 0 at any bit depth,
-    DCT or DST-VII; qp must be a static Python int.  ~7x the XLA path
-    on TPU (see bench.py).
-    """
-    from nanohevc_tpu.kernels.slab_pipeline import slab_encode_plane
-
-    h, w = plane.shape
-    src = plane.astype(jnp.int32)
-    out = slab_encode_plane(
-        src, qp, n, bit_depth=bit_depth, with_modes=True, use_dst=use_dst,
-        dequant_rescale=dequant_rescale,
-    )
-    levels_blocks = ops.tile_plane(out["levels_slab"], n)
-    modes_plane = out["modes_slab"]
-    dc_wins = modes_plane[::n, ::n].reshape(-1)          # 1 = DC per block
-    from nanohevc_tpu.ops.intra import DC_MODE, PLANAR_MODE
-
-    modes = jnp.where(dc_wins == 1, DC_MODE, PLANAR_MODE).astype(jnp.int32)
-    packed = ops.scan_pack(levels_blocks, scan, modes=modes)
-    return {
-        "recon": out["recon"],   # trailing edge rows already source-filled
-        "levels": packed,
-        "modes": modes,
-        "nnz": (packed != 0).sum(axis=1),
-    }
-
-
-def encode_plane_fast_modes(
-    plane: jnp.ndarray,
-    qp: int,
-    *,
-    n: int,
-    bit_depth: int = 8,
-    scan: str = "diag",
-    use_dst: bool = False,
-    dequant_rescale: bool = False,
-):
-    """Fused 35-mode-search fast path, same outputs as encode_plane_full.
-
-    Covers mode_set="all"/decision="satd" for N in {4, 8, 16, 32} at any
-    bit depth (3.9x the XLA search on TPU); qp must be a static Python
-    int.
-    """
-    from nanohevc_tpu.kernels.mode_search_grouped import (
-        mode_search_encode_plane_auto,
-    )
-
-    out = mode_search_encode_plane_auto(
-        plane, qp, n, bit_depth=bit_depth, use_dst=use_dst,
-        dequant_rescale=dequant_rescale,
-    )
-    levels_blocks = ops.tile_plane(out["levels_slab"], n)
-    modes = out["modes_slab"][::n, ::n].reshape(-1).astype(jnp.int32)
-    packed = ops.scan_pack(levels_blocks, scan, modes=modes)
-    return {
-        "recon": out["recon"],
-        "levels": packed,
-        "modes": modes,
-        "nnz": (packed != 0).sum(axis=1),
-    }
-
-
-def supports_mode_search_fast_path(config, n: int, width: int,
-                                   is_luma: bool = True) -> bool:
-    """True when encode_plane_fast_modes covers this combo."""
-    return (
-        (config.mode_set if is_luma else config.chroma_modes()) == "all"
-        and config.decision == "satd"
-        and config.is_intra
-        and not (config.intra_smoothing and is_luma)  # smoothing -> XLA path
-        and n in (4, 8, 16, 32)
-        and width % n == 0
-    )
-
-
-def supports_fast_path(config, n: int, width: int, is_luma: bool = True) -> bool:
-    """True when encode_plane_fast covers this (config, plane) combo.
-
-    All block sizes (DST-VII 4x4 luma included) and bit depths ride the
-    slab kernel; boundary fill / clip max / dequant shift are SMEM
-    scalars, the transform weight set is baked per (N, use_dst).
-    """
-    from nanohevc_tpu.kernels.slab_pipeline import slab_supported
-
-    return (
-        (config.mode_set if is_luma else config.chroma_modes()) == "dc_planar"
-        and config.decision == "energy"
-        and config.is_intra
-        and not (config.intra_smoothing and is_luma)  # smoothing -> XLA path
-        and slab_supported(n, width)
-    )
-
-
 @lru_cache(maxsize=None)
 def _jit_parity(n: int, bit_depth: int):
     return jax.jit(partial(encode_plane_parity, n=n, bit_depth=bit_depth))
@@ -526,28 +418,6 @@ def _jit_full(n: int, mode_set: str, decision: str, use_dst: bool,
             rdoq=rdoq,
             dequant_rescale=dequant_rescale,
             intra_smoothing=intra_smoothing,
-        )
-    )
-
-
-@lru_cache(maxsize=None)
-def _jit_fast(n: int, bit_depth: int, scan: str, qp: int,
-              use_dst: bool = False, dequant_rescale: bool = False):
-    return jax.jit(
-        lambda p: encode_plane_fast(
-            p, qp, n=n, bit_depth=bit_depth, scan=scan, use_dst=use_dst,
-            dequant_rescale=dequant_rescale,
-        )
-    )
-
-
-@lru_cache(maxsize=None)
-def _jit_fast_modes(n: int, bit_depth: int, scan: str, qp: int,
-                    use_dst: bool = False, dequant_rescale: bool = False):
-    return jax.jit(
-        lambda p: encode_plane_fast_modes(
-            p, qp, n=n, bit_depth=bit_depth, scan=scan, use_dst=use_dst,
-            dequant_rescale=dequant_rescale,
         )
     )
 
@@ -602,37 +472,20 @@ def encode_frame_full(frame: Frame, config: EncoderConfig) -> Tuple[Frame, dict]
     ):
         is_luma = name == "Y"
         bs = config.block_size if is_luma else config.chroma_block_size()
-        width = src.width
-        # route to the fused slab kernels when the config allows
-        # (rdo_cbf / rdoq need the XLA path's RD stages)
-        xla_only = config.rdo_cbf or config.rdoq
-        if not xla_only and supports_fast_path(config, bs, width, is_luma):
-            out = _jit_fast(
-                bs, config.bit_depth, config.scan, config.qp,
-                config.use_dst(bs, is_luma), config.dequant_rescale,
-            )(jnp.asarray(src.data))
-        elif not xla_only and supports_mode_search_fast_path(
-            config, bs, width, is_luma
-        ):
-            out = _jit_fast_modes(
-                bs, config.bit_depth, config.scan, config.qp,
-                config.use_dst(bs, is_luma), config.dequant_rescale,
-            )(jnp.asarray(src.data))
-        else:
-            fn = _jit_full(
-                bs,
-                config.mode_set if is_luma else config.chroma_modes(),
-                config.decision,
-                config.use_dst(bs, is_luma),
-                config.is_intra,
-                config.bit_depth,
-                config.scan,
-                config.rdo_cbf,
-                config.dequant_rescale,
-                config.intra_smoothing and is_luma,  # spec: luma only
-                config.rdoq,
-            )
-            out = fn(jnp.asarray(src.data), jnp.int32(config.qp))
+        fn = _jit_full(
+            bs,
+            config.mode_set if is_luma else config.chroma_modes(),
+            config.decision,
+            config.use_dst(bs, is_luma),
+            config.is_intra,
+            config.bit_depth,
+            config.scan,
+            config.rdo_cbf,
+            config.dequant_rescale,
+            config.intra_smoothing and is_luma,  # spec: luma only
+            config.rdoq,
+        )
+        out = fn(jnp.asarray(src.data), jnp.int32(config.qp))
         dst.data[...] = np.asarray(out["recon"]).astype(np.int16)
         info["planes"][name] = {
             "levels": np.asarray(out["levels"]),

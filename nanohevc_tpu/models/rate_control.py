@@ -8,9 +8,8 @@ own size as ground truth:
 - `find_frame_qp`: per-frame bisection over QP.  Coded size is
   monotonically non-increasing in QP (larger QP -> coarser levels ->
   fewer/smaller coefficients), so ~6 real encodes bracket the best
-  quality that fits the budget.  At multi-GPix/s per encode this is
-  cheap; all device paths take QP as a *traced* scalar, so the probes
-  share one compiled program.
+  quality that fits the budget.  All device paths take QP as a
+  *traced* scalar, so the probes share one compiled program.
 - `RateController`: sequence-level feedback in the log-bits domain.
   The codec's "+6 QP halves magnitudes" property (vendored reference
   test, tests/test_quant.py) makes log2(actual/target) the natural

@@ -5,7 +5,7 @@ serializes blocks along the raster diagonal.  The reference sidesteps
 this entirely (it predicts from source pixels, __main__.py:162-163;
 its own docs acknowledge the real encoder must use reconstructed
 pixels, docs/frames_and_panes.md:342-346).  This module implements the
-real thing, TPU-style:
+real thing as one batched program:
 
 - blocks on the same anti-diagonal (by + bx == d) have no mutual
   dependency, so the frame is processed as a lax.scan over diagonals,
@@ -24,8 +24,7 @@ real thing, TPU-style:
   SAME offset (column d*N, after a global +N+1 shift) and writes at
   d*N+N+1, so each scan step is two contiguous dynamic slices + two
   dynamic-update-slices plus rolls/flips along the slot axis - no
-  gather or scatter HLOs anywhere in the loop (on TPU those lower to
-  per-index serial updates and dominated the old formulation);
+  gather or scatter HLOs anywhere in the loop;
 - frame-edge clamp semantics (replicate the last reconstructed pixel)
   become a conditional write of a replicated N-wide tail, applied only
   when the plane is block-aligned on that axis (otherwise the clamped
@@ -82,7 +81,7 @@ def _skew_blocks(raster: jnp.ndarray, nby: int, nbx: int) -> jnp.ndarray:
     whole permutation is one pad + reshape: flattening the padded
     (nby, ndiag+1) layout gives flat[by*(ndiag+1) + bx] =
     flat2[by*ndiag + (by + bx)], i.e. exactly the (by, d) grid.  No
-    gather HLO anywhere (TPU lowers big gathers to serial updates).
+    gather HLO anywhere.
     Invalid (d, by) slots hold neighboring rows' data - callers must
     treat them as garbage (the wavefront drops them on deskew).
     """
@@ -235,9 +234,6 @@ def encode_planes_closed_loop(
     sao: bool = False,
     sao_ctb: bool = False,
     sao_tile: int = 64,
-    allow_fast: bool | None = None,
-    unroll: int = 1,
-    kernel_split: tuple[int | None, int | None, int | None] | None = None,
     rdoq: bool = False,
     rd_lambda_scale: float = 1.0,
 ):
@@ -245,14 +241,10 @@ def encode_planes_closed_loop(
 
     Returns {"recon" (B, H, W), "levels" (B, nb, N*N) scan-packed
     raster order, "modes" (B, nb)}.  Frames are independent, so the
-    batch axis rides the Pallas kernel's grid (or `vmap` on the XLA
-    path) - multi-frame diagonal interleaving: B frames' same-index
-    diagonals per sequential step.  allow_fast=None auto-selects a
-    fused kernel where one applies: dc_planar/energy single-frame
-    (wavefront_slab) or the full 35-mode SATD search at any batch
-    (wavefront_mode_slab); False forces the XLA scan (the kernels'
-    bit-exactness oracle, itself pinned to the sequential per-block
-    simulation in tests/test_wavefront.py).
+    batch axis is a `vmap` over the diagonal scan - multi-frame
+    diagonal interleaving: B frames' same-index diagonals per
+    sequential step.  The scan is pinned bit-exactly to the sequential
+    per-block oracle (nanohevc_tpu.ref.encode.encode_plane_closed_loop).
     """
     b, h, w = planes.shape
     src = planes.astype(jnp.int32)
@@ -278,156 +270,69 @@ def encode_planes_closed_loop(
     boundary = 1 << (bit_depth - 1)
     rep_w, rep_h = True, True   # padded planes are always block-aligned
     from nanohevc_tpu.models.all_intra import decide_modes
-    from nanohevc_tpu.kernels.wavefront_slab import (
-        wavefront_encode_blocks,
-        wavefront_kernel_supported,
-    )
-    from nanohevc_tpu.kernels.wavefront_mode_slab import (
-        wavefront_mode_kernel_supported,
-        wavefront_mode_search_blocks,
-    )
-    from nanohevc_tpu.kernels.wavefront_mode_grouped import (
-        wavefront_mode_grouped_supported,
-        wavefront_mode_search_raster_grouped,
-    )
 
     bx_j, ok_j = jnp.asarray(bx_t), jnp.asarray(ok_t)
     d_j = jnp.arange(ndiag, dtype=jnp.int32)
+    rd = decision == "rd"
 
-    # The fused kernel minimizes per-step latency and wins single-frame;
-    # at batch >= 2 the vmapped XLA scan overtakes it (MXU einsum
-    # transforms amortize across the widened diagonal), so auto-select
-    # by batch.  Both paths are bit-exact to the sequential oracle.
-    if rdoq and allow_fast:
-        raise ValueError(
-            "rdoq runs on the closed-loop XLA scan path (the fused "
-            "wavefront kernels quantize with plain deadzone); pass "
-            "allow_fast=False or None"
-        )
-    if allow_fast is None:
-        allow_fast = (
-            not intra_smoothing       # smoothing lives on the XLA path
-            and not rdoq              # RDOQ lives on the XLA path
-            and (
-                # dc_planar kernel: wins only single-frame (bench row 12)
-                (b == 1
-                 and wavefront_kernel_supported(n, mode_set, decision,
-                                                use_dst))
-                # 35-mode kernel: the in-VMEM sweep beats the XLA scan
-                # at every batch (bench row 7)
-                or wavefront_mode_kernel_supported(n, mode_set, decision,
-                                                   use_dst)
+    def step(carry, xs):
+        if rd:
+            s_bot, r_sp, prev_modes = carry
+        else:
+            s_bot, r_sp = carry
+        d, bx, ok, blocks_slot = xs
+        refs = _read_refs_skewed(s_bot, r_sp, d, n, nby, boundary, bx)
+        mb = None
+        if rd:
+            # EXACT per-candidate MPM signalling cost: in skewed
+            # coordinates, slot by's left neighbor (by, bx-1) was
+            # decided at step d-1 in the SAME slot and its above
+            # neighbor (by-1, bx) in slot by-1 — both live in the
+            # previous step's decided-modes vector.  Unavailable
+            # neighbors (bx == 0 <=> by == d; by == 0) read as DC,
+            # the mode coder's exact conditioning
+            # (runtime/entropy.py encode_modes), so the rate term
+            # prices the shipped syntax with no approximation.
+            from nanohevc_tpu.ops.mode_rate import mpm_mode_bits
+
+            slot_i = jnp.arange(nby, dtype=jnp.int32)
+            a_n = jnp.where(slot_i == d, 1, prev_modes)
+            b_n = jnp.concatenate(
+                [jnp.ones((1,), jnp.int32), prev_modes[:-1]]
             )
+            mb = mpm_mode_bits(a_n, b_n)
+        pred, modes = decide_modes(
+            blocks_slot, refs, n, mode_set, decision,
+            smoothing=intra_smoothing, bit_depth=bit_depth,
+            qp=qp, use_dst=use_dst, dequant_rescale=dequant_rescale,
+            mode_bits=mb,
         )
-    rec_raster = None
-    grouped_path = allow_fast and wavefront_mode_grouped_supported(
-        n, b, mode_set, decision, use_dst
-    )
-    if kernel_split is not None and not grouped_path:
-        # A pinned split that silently doesn't apply would misreport
-        # which throughput class the caller got — refuse instead.
-        raise ValueError(
-            f"kernel_split={kernel_split} requires the grouped wavefront "
-            f"kernel, but that path is not selected here (n={n}, "
-            f"batch={b}, mode_set={mode_set!r}, decision={decision!r}, "
-            f"use_dst={use_dst}, allow_fast={allow_fast}; on real TPU "
-            "the batch must be a positive multiple of 8)"
+        levels, rec_blocks = _code_residual(
+            blocks_slot, pred, qp, n, use_dst, bit_depth,
+            dequant_rescale, rdoq=rdoq, scan=scan, modes=modes,
+            rd_lambda_scale=rd_lambda_scale,
         )
-    if grouped_path:
-        # batch packs the sublane axis ((1, W) reference ops become
-        # (g, W) and row slices become tile-aligned g-row groups — the
-        # open-loop grouped kernel's ~2.3x layout win), the lane axis
-        # (m frames back to back) and TIME (F frames stream through
-        # each slot: the wrapped wavefront cuts the skew's idle slots
-        # by F).  Raster in/out; the per-frame skew below is skipped.
-        ks_g, ks_m, ks_f = kernel_split or (None, None, None)
-        rec_raster, lev_raster, modes_r = wavefront_mode_search_raster_grouped(
-            blocks, qp, n=n, nby=nby, nbx=nbx, use_dst=use_dst,
-            bit_depth=bit_depth, dequant_rescale=dequant_rescale,
-            group=ks_g, lanes=ks_m, wrap=ks_f,
+        s_bot, r_sp = _write_bufs_skewed(
+            s_bot, r_sp, rec_blocks, d, ok, bx, n, nby, nbx, rep_w, rep_h
         )
-        modes = modes_r.reshape(b, nby * nbx)
-    elif allow_fast and wavefront_mode_kernel_supported(
-        n, mode_set, decision, use_dst
-    ):
-        blocks_sk = _skew_blocks(blocks, nby, nbx)
-        rec_all, levels_all, modes_all = wavefront_mode_search_blocks(
-            blocks_sk, qp, n=n, nby=nby, nbx=nbx, use_dst=use_dst,
-            bit_depth=bit_depth, dequant_rescale=dequant_rescale,
-        )
-    elif allow_fast:
-        blocks_sk = _skew_blocks(blocks, nby, nbx)
-        rec_all, levels_all, modes_all = wavefront_encode_blocks(
-            blocks_sk, qp, n=n, nby=nby, use_dst=use_dst,
-            bit_depth=bit_depth, dequant_rescale=dequant_rescale,
-        )
-    else:
-        rd = decision == "rd"
+        new_carry = (s_bot, r_sp, modes) if rd else (s_bot, r_sp)
+        return new_carry, (rec_blocks, levels, modes)
 
-        def step(carry, xs):
-            if rd:
-                s_bot, r_sp, prev_modes = carry
-            else:
-                s_bot, r_sp = carry
-            d, bx, ok, blocks_slot = xs
-            refs = _read_refs_skewed(s_bot, r_sp, d, n, nby, boundary, bx)
-            mb = None
-            if rd:
-                # EXACT per-candidate MPM signalling cost: in skewed
-                # coordinates, slot by's left neighbor (by, bx-1) was
-                # decided at step d-1 in the SAME slot and its above
-                # neighbor (by-1, bx) in slot by-1 — both live in the
-                # previous step's decided-modes vector.  Unavailable
-                # neighbors (bx == 0 <=> by == d; by == 0) read as DC,
-                # the mode coder's exact conditioning
-                # (runtime/entropy.py encode_modes), so the rate term
-                # prices the shipped syntax with no approximation.
-                from nanohevc_tpu.ops.mode_rate import mpm_mode_bits
+    def one_frame(frame_sk):
+        init = _skew_buffers(nby, nbx, n)
+        if rd:
+            init = init + (jnp.ones((nby,), jnp.int32),)
+        _, outs = jax.lax.scan(step, init, (d_j, bx_j, ok_j, frame_sk))
+        return outs
 
-                slot_i = jnp.arange(nby, dtype=jnp.int32)
-                a_n = jnp.where(slot_i == d, 1, prev_modes)
-                b_n = jnp.concatenate(
-                    [jnp.ones((1,), jnp.int32), prev_modes[:-1]]
-                )
-                mb = mpm_mode_bits(a_n, b_n)
-            pred, modes = decide_modes(
-                blocks_slot, refs, n, mode_set, decision,
-                smoothing=intra_smoothing, bit_depth=bit_depth,
-                qp=qp, use_dst=use_dst, dequant_rescale=dequant_rescale,
-                mode_bits=mb,
-            )
-            levels, rec_blocks = _code_residual(
-                blocks_slot, pred, qp, n, use_dst, bit_depth,
-                dequant_rescale, rdoq=rdoq, scan=scan, modes=modes,
-                rd_lambda_scale=rd_lambda_scale,
-            )
-            s_bot, r_sp = _write_bufs_skewed(
-                s_bot, r_sp, rec_blocks, d, ok, bx, n, nby, nbx, rep_w, rep_h
-            )
-            new_carry = (s_bot, r_sp, modes) if rd else (s_bot, r_sp)
-            return new_carry, (rec_blocks, levels, modes)
+    blocks_sk = _skew_blocks(blocks, nby, nbx)
+    rec_all, levels_all, modes_all = jax.vmap(one_frame)(blocks_sk)
 
-        def one_frame(frame_sk):
-            init = _skew_buffers(nby, nbx, n)
-            if rd:
-                init = init + (jnp.ones((nby,), jnp.int32),)
-            _, outs = jax.lax.scan(
-                step, init, (d_j, bx_j, ok_j, frame_sk),
-                unroll=unroll,
-            )
-            return outs
-
-        blocks_sk = _skew_blocks(blocks, nby, nbx)
-        rec_all, levels_all, modes_all = jax.vmap(one_frame)(blocks_sk)
-
-    # Deskew back to raster block order (pure pad+reshape - the old
-    # 50k-index scatter lowered to serial updates and cost 20+ ms per
-    # frame), then untile/pack over the whole batch at once.  The
-    # grouped kernel path already returned raster blocks.
-    if rec_raster is None:
-        rec_raster = _deskew_blocks(rec_all, nby, nbx)    # (B, nb, N, N)
-        lev_raster = _deskew_blocks(levels_all, nby, nbx)
-        modes = _deskew_blocks(modes_all, nby, nbx)       # (B, nb)
+    # Deskew back to raster block order (pure pad+reshape, no
+    # scatter), then untile/pack over the whole batch at once.
+    rec_raster = _deskew_blocks(rec_all, nby, nbx)        # (B, nb, N, N)
+    lev_raster = _deskew_blocks(levels_all, nby, nbx)
+    modes = _deskew_blocks(modes_all, nby, nbx)           # (B, nb)
     recon = jax.vmap(lambda rc: ops.untile_plane(rc, hp, wp))(rec_raster)
     if deblock:
         # In-loop deblocking (spec 8.7.2) on the padded recon before

@@ -1,8 +1,8 @@
-"""Batched JAX device ops: the TPU compute path.
+"""Batched JAX device ops: the accelerator compute path.
 
 Everything in this package operates on a `(num_blocks, N, N)` int32
 block tensor (plus `(num_blocks, ...)` reference tensors) — the
-TPU-first inversion of the reference's one-block-at-a-time design.
+batched inversion of the reference's one-block-at-a-time design.
 All ops are jittable, integer-exact, and verified bit-exact against
 the numpy oracle in `nanohevc_tpu.ref` (tests/test_parity.py).
 """

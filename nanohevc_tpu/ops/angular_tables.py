@@ -1,6 +1,6 @@
 """Static per-(size, mode) index/weight tables for angular prediction.
 
-The TPU-first formulation of HEVC angular prediction (spec 8.4.4.2.6):
+The batched formulation of HEVC angular prediction (spec 8.4.4.2.6):
 for a fixed block size every mode's reference-array construction and
 per-pixel projection indices are compile-time constants, so the whole
 35-mode family becomes data, not control flow.  At trace time we bake:
@@ -89,10 +89,9 @@ def angular_weight_matrices(
     one static matrix per mode:  pred_flat = (refs @ W_m + 16) >> 5,
     with W_m of shape (4N+2, N*N) holding the two lerp weights
     (32-frac at the source of idx, frac at the source of idx+1) routed
-    through the src table.  Gathers are catastrophically slow on TPU
-    (a 35-mode search ran at 2 Mpix/s gather-based); as matmuls the
-    whole mode sweep rides the MXU.  Returns (len(modes), 4N+2, N*N)
-    int32.
+    through the src table.  As one matmul per mode set, the whole
+    mode sweep is a single contraction with no gathers.  Returns
+    (len(modes), 4N+2, N*N) int32.
     """
     tabs = angular_tables(n, modes)
     m = len(modes)

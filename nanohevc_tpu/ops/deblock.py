@@ -1,9 +1,9 @@
-"""Batched TPU deblocking filter (spec 8.7.2, all-intra bS = 2).
+"""Batched deblocking filter (spec 8.7.2, all-intra bS = 2).
 
 Vectorized twin of ref/deblock.py (the sequential oracle; see its
 docstring for the spec mapping and the all-intra specialization).
 
-TPU formulation: filters on the 8-sample deblocking grid touch at most
+Batched formulation: filters on the 8-sample deblocking grid touch at most
 4 samples each side of an edge, and edges are >= 8 apart, so every
 edge in a pass is independent — the whole plane's vertical pass is a
 handful of elementwise ops over (H, n_edges) views taken with static

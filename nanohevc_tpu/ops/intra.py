@@ -205,10 +205,9 @@ def angular_predict_modes(
 
 
 def angular_predict_mm(refs: jnp.ndarray, n: int, mode: int) -> jnp.ndarray:
-    """One angular mode, gather-free: (refs @ W_mode + 16) >> 5 on MXU.
+    """One angular mode, gather-free: (refs @ W_mode + 16) >> 5.
 
-    Bit-identical to the gather path (both implement the same lerp);
-    preferred on TPU where gathers serialize.
+    Bit-identical to the gather path (both implement the same lerp).
     """
     w = jnp.asarray(angular_weight_matrices(n, (mode,))[0])    # (4N+2, N*N)
     acc = jnp.einsum("br,rp->bp", refs, w, preferred_element_type=jnp.int32)

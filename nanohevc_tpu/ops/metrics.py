@@ -1,9 +1,9 @@
 """Jittable quality metrics (parity: /root/reference/nano_hevc/metrics.py).
 
 Per-block variants operate over the (nb, N, N) block tensor and return
-(nb,) vectors; frame-level mse/psnr reduce in float32 (TPU has no
-float64 — PSNR is a float metric, the <1e-4 dB difference vs the
-float64 oracle is irrelevant and covered by test tolerances).
+(nb,) vectors; frame-level mse/psnr reduce in float32 (JAX's default
+without 64-bit mode — PSNR is a float metric, the <1e-4 dB difference
+vs the float64 oracle is irrelevant and covered by test tolerances).
 """
 
 from __future__ import annotations

@@ -311,9 +311,13 @@ def model_bits_adaptive(packed: jnp.ndarray) -> jnp.ndarray:
         jnp.arange(ncoef)[None, :] < lastidx[:, None]
     )                                                         # (nb, ncoef)
     sig_c = (sig & emitted).astype(jnp.float32)
-    ones = jnp.einsum("bp,pc->c", sig_c, onehot)             # (32,)
+    # Context counts from 0/1 operands: HIGHEST keeps the GPU from
+    # running them in TF32, so the sums match the CPU's float32 ones
+    # wherever the counts stay below 2^24.
+    hi = jax.lax.Precision.HIGHEST
+    ones = jnp.einsum("bp,pc->c", sig_c, onehot, precision=hi)      # (32,)
     totals = jnp.einsum(
-        "bp,pc->c", emitted.astype(jnp.float32), onehot
+        "bp,pc->c", emitted.astype(jnp.float32), onehot, precision=hi
     )                                                         # (32,)
     sig1_c, sig0_c = prices(ones, totals)
 

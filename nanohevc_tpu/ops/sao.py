@@ -1,4 +1,4 @@
-"""Batched TPU Sample Adaptive Offset (spec 8.7.3).
+"""Batched Sample Adaptive Offset (spec 8.7.3).
 
 Vectorized twin of ref/sao.py (see its docstring for the spec mapping
 and the per-plane framework adaptation).  Sample classification is

@@ -3,7 +3,7 @@
 The per-frame SAO stage (ops/sao.py) adapts one parameter set per
 plane; the spec signals SAO per CTB with merge-left/up flags, which is
 where most of SAO's gain on mixed content lives.  This module does the
-CTB-granular version TPU-first:
+CTB-granular version as batched device ops:
 
 * Classification stays FULL-PLANE (the spec filters across CTB
   boundaries; only picture borders mask to category 0), so tile edges

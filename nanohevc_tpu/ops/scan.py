@@ -4,7 +4,7 @@ The reference declares scan.py but never implements it
 (/root/reference/README.md:19, docs roadmap); BASELINE.json config 5
 requires a zig-zag scan-packing stage feeding host-side entropy
 coding.  Implemented as a static permutation gather over the flattened
-block tensor — free on TPU (fuses into whatever produced the levels).
+block tensor that fuses into whatever produced the levels.
 
 Scan kinds: "diag" / "horizontal" / "vertical" are the spec 6.5.3
 group-based orders applied uniformly; "mode" applies the spec's
@@ -12,7 +12,7 @@ mode-dependent scan rule (7.4.9.11): at 4x4 and 8x8, near-horizontal
 intra modes 6-14 select the vertical scan, near-vertical modes 22-30
 the horizontal scan, everything else (and all 16x16/32x32 blocks) the
 up-right diagonal.  The per-block selection is two jnp.where ops over
-three constant-permutation packings — no dynamic gather on TPU.
+three constant-permutation packings — no dynamic gather.
 """
 
 from __future__ import annotations

@@ -1,15 +1,11 @@
 """Sparse device->host transfer of quantized level tensors.
 
-The sequence encoder's end-to-end wall is NOT the device compute and
-NOT the host entropy coder — it is the device->host fetch of the dense
-`(B, nb, ncoef)` int32 level tensor (~66 MB per 8-frame 1080p batch)
-through a link measured at ~35 MB/s (round-5 profiling).
+The dense `(B, nb, ncoef)` int32 level tensor is ~66 MB per 8-frame
+1080p batch, so the sequence encoder fetches only what it needs.
 
 Levels are scan-packed per block (DC first), so at production QPs the
 occupied coefficients concentrate in a short prefix of the scan order.
-The transfer scheme exploits exactly that, with zero scatters (TPU
-scatter over a 16M-element axis measured 0.5 s/batch to run and 60+ s
-to compile — worse than the fetch it replaced):
+The transfer scheme exploits exactly that, with zero scatters:
 
   device:  compact_levels()  — ONE pair of reductions producing an
            8-byte header [prefix_len, max_abs] where prefix_len is

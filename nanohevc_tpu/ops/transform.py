@@ -1,12 +1,12 @@
-"""Batched integer transforms as MXU einsums (HEVC spec 8.6).
+"""Batched integer transforms as einsums (HEVC spec 8.6).
 
 Each pass of the separable transform over the whole block axis is one
-int32 contraction — the TPU-first replacement for the reference's
+int32 contraction — the batched replacement for the reference's
 per-block O(N^3) Python loops (transform.py:179-194, :221-236).
 
 Exactness: with 8/10-bit residual inputs, per-pass accumulators stay
 below 2^22 (N=32: 32*90*2047 ~ 5.9e6 < 2^23), so the contraction is
-exact in int32 — and also in float32 should XLA choose an MXU float
+exact in int32 — and also in float32 should XLA choose a float
 path (sums of integers < 2^24 are exact in f32).  Verified bit-exact
 against the int64 numpy oracle in tests/test_parity.py.
 """

@@ -9,8 +9,10 @@ The codec's parallel axes (SURVEY §2 "parallelism inventory"):
           top-neighbor halo row, which XLA materializes as a small
           collective-permute under jit.
 
-A v5e pod slice maps 'frame' x 'space' onto the ICI torus; on a single
-chip both axes are 1 and the same code runs unsharded.
+The mesh follows the algorithm alone: devices that all reach each
+other at the same rate (GPUs of one host over NVLink) are laid out
+'frame' x 'space'; on a single device both axes are 1 and the same
+code runs unsharded.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Clean-room vectorized numpy oracle for the HEVC front-half ops.
 
-This package is the bit-exactness referee for the JAX/Pallas device
+This package is the bit-exactness referee for the JAX device
 path and also backs the single-block public API (the "CPU numpy path"
 of BASELINE.json config 1).  Behavior matches the reference
 implementation (/root/reference/nano_hevc) observable semantics, but

@@ -3,7 +3,7 @@
 The reference implementation (Luodian/nano-hevc) has no in-loop
 filtering at all — its README's "future work" stops at the entropy
 layer.  This module is the framework's sequential, spec-shaped oracle
-for the deblocking filter; the batched TPU formulation lives in
+for the deblocking filter; the batched device formulation lives in
 ops/deblock.py and is fuzz-checked bit-exact against this one.
 
 Scope — the all-intra specialization of spec 8.7.2:

@@ -1,7 +1,7 @@
 // nanohevc-tpu native host runtime: adaptive binary arithmetic entropy
 // codec, residual level coding, and NAL bitstream framing.
 //
-// Role: the sequential-by-nature entropy stage of the encoder.  The TPU
+// Role: the sequential-by-nature entropy stage of the encoder.  The device
 // produces scan-ordered quantized levels (nanohevc_tpu.ops.scan); this
 // library turns them into a compressed bitstream on the host — and can
 // decode them back bit-exactly (tests do lossless round-trips).

@@ -1,4 +1,4 @@
-"""Deblocking filter: oracle golden values + TPU-path parity.
+"""Deblocking filter: oracle golden values + device-path parity.
 
 Oracle (ref/deblock.py) is checked against hand-derived spec 8.7.2
 arithmetic; the batched jnp path (ops/deblock.py) is fuzz-checked

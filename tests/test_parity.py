@@ -264,3 +264,84 @@ class TestMatmulAngular:
         want = np.asarray(ops.predict_by_mode(refs, n, modes))
         got = np.asarray(predict_by_mode_mm(refs, n, modes))
         assert np.array_equal(got, want)
+
+
+# (n, h, w, qp, mode_set, options) for the whole open-loop pipeline:
+# every block size, QP extremes, trailing rows/columns outside the block
+# grid, the 4x4 DST-VII luma rule, 10-bit and the dequant rescale.
+PIPELINE_CASES = [
+    pytest.param(4, 14, 24, 26, "dc_planar", {}, id="n4-partial-rows"),
+    pytest.param(8, 36, 48, 10, "dc_planar", {}, id="n8-partial-rows"),
+    pytest.param(16, 72, 96, 30, "dc_planar", {}, id="n16-partial-rows"),
+    pytest.param(32, 144, 192, 30, "dc_planar", {}, id="n32-partial-rows"),
+    pytest.param(8, 32, 64, 0, "dc_planar", {}, id="qp0"),
+    pytest.param(8, 32, 64, 17, "dc_planar", {}, id="qp17"),
+    pytest.param(8, 32, 64, 37, "dc_planar", {}, id="qp37"),
+    pytest.param(8, 32, 64, 51, "dc_planar", {}, id="qp51"),
+    pytest.param(8, 44, 61, 22, "dc_planar", {}, id="n8-ragged-width"),
+    pytest.param(4, 24, 32, 24, "dc_planar", {"use_dst": True}, id="n4-dst"),
+    pytest.param(4, 16, 24, 30, "dc_planar",
+                 {"use_dst": True, "bit_depth": 10}, id="n4-dst-10bit"),
+    pytest.param(8, 32, 48, 30, "dc_planar", {"bit_depth": 10}, id="n8-10bit"),
+    pytest.param(8, 32, 64, 28, "dc_planar", {"dequant_rescale": True},
+                 id="n8-rescale"),
+    pytest.param(16, 32, 64, 28, "dc_planar", {"dequant_rescale": True},
+                 id="n16-rescale"),
+    pytest.param(4, 20, 24, 26, "all", {"use_dst": True}, id="all-n4-dst"),
+    pytest.param(8, 24, 40, 12, "all", {}, id="all-n8"),
+    pytest.param(16, 48, 80, 30, "all", {}, id="all-n16"),
+    pytest.param(32, 96, 160, 30, "all", {}, id="all-n32"),
+    pytest.param(8, 21, 24, 24, "all", {}, id="all-n8-partial-rows"),
+    pytest.param(8, 16, 24, 30, "all", {"bit_depth": 10}, id="all-n8-10bit"),
+]
+
+
+class TestPipelineVsOracle:
+    """encode_plane_full (the open-loop XLA pipeline) == the per-block
+    numpy oracle nanohevc_tpu.ref.encode, bit-for-bit."""
+
+    @pytest.mark.parametrize("n,h,w,qp,mode_set,kw", PIPELINE_CASES)
+    def test_plane(self, n, h, w, qp, mode_set, kw):
+        from nanohevc_tpu.models.all_intra import encode_plane_full
+        from nanohevc_tpu.ref.encode import encode_plane_open_loop
+
+        rng = np.random.default_rng(n * h + w + qp)
+        plane = rng.integers(0, 1 << kw.get("bit_depth", 8), (h, w))
+        plane = plane.astype(np.int32)
+        if mode_set == "all" and h % n:
+            # extreme trailing rows: the left extension must read the
+            # real rows below the last block-row, not the grid's edge
+            plane[(h // n) * n :, :] = (1 << kw.get("bit_depth", 8)) - 1
+        out = encode_plane_full(
+            jnp.asarray(plane), jnp.int32(qp), n=n, mode_set=mode_set,
+            decision="energy" if mode_set == "dc_planar" else "satd", **kw
+        )
+        want_recon, want_levels, want_modes = encode_plane_open_loop(
+            plane, n, qp, mode_set=mode_set, **kw
+        )
+        assert np.array_equal(np.asarray(out["recon"]), want_recon)
+        assert np.array_equal(np.asarray(out["modes"]), want_modes)
+        got_levels = np.asarray(ops.scan_unpack(out["levels"], modes=out["modes"]))
+        assert np.array_equal(got_levels, want_levels)
+        assert np.array_equal(
+            np.asarray(out["nnz"]), (want_levels != 0).sum(axis=(1, 2))
+        )
+
+    def test_batched_vmap(self):
+        """The frame batch of the sequence encoder (a vmap over planes)
+        equals each frame's own oracle encode."""
+        from nanohevc_tpu.config import EncoderConfig
+        from nanohevc_tpu.parallel import make_batch_encoder
+        from nanohevc_tpu.ref.encode import encode_plane_open_loop
+
+        rng = np.random.default_rng(40)
+        frames = rng.integers(0, 256, (3, 28, 40)).astype(np.int32)
+        out = make_batch_encoder(EncoderConfig(block_size=8, qp=27))(
+            jnp.asarray(frames), jnp.int32(27)
+        )
+        for f in range(3):
+            want_recon, want_levels, _ = encode_plane_open_loop(frames[f], 8, 27)
+            assert np.array_equal(np.asarray(out["recon"][f]), want_recon), f
+            assert np.array_equal(
+                np.asarray(ops.scan_unpack(out["levels"][f])), want_levels
+            ), f

@@ -127,8 +127,8 @@ class TestSequenceRateControl:
         assert decode_sequence(str(bs), str(out)) == n
 
     def test_open_loop_rate_control_honors_runtime_qp(self, tmp_path):
-        """Open loop routes to the XLA path (fused kernels bake QP);
-        the controller's QP changes must reach the device encode."""
+        """The controller's QP changes must reach the open-loop device
+        encode (QP is a traced argument of the compiled program)."""
         from nanohevc_tpu.models.sequence import encode_sequence
 
         w, h, n = 64, 32, 8

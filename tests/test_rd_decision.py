@@ -109,8 +109,7 @@ class TestClosedLoopExactModeRate:
         satd = encode_plane_closed_loop(
             plane, jnp.int32(qp), n=n, mode_set="all", decision="satd")
         rd = encode_plane_closed_loop(
-            plane, jnp.int32(qp), n=n, mode_set="all", decision="rd",
-            allow_fast=False)
+            plane, jnp.int32(qp), n=n, mode_set="all", decision="rd")
         dec = decode_plane(rd["levels"], rd["modes"], jnp.int32(qp),
                            n=n, height=h, width=w)
         assert np.array_equal(np.asarray(dec), np.asarray(rd["recon"]))

@@ -182,7 +182,7 @@ class TestClosedLoopRdoq:
 
         plane = jnp.asarray(_natural_plane(48, 64, seed=3))
         out = encode_plane_closed_loop(
-            plane, jnp.int32(30), n=8, rdoq=True, allow_fast=False
+            plane, jnp.int32(30), n=8, rdoq=True
         )
         dec = decode_plane(
             out["levels"], out["modes"], jnp.int32(30), n=8,
@@ -204,7 +204,7 @@ class TestClosedLoopRdoq:
         outs = {}
         for flag in (False, True):
             o = encode_plane_closed_loop(
-                plane, jnp.int32(14), n=8, rdoq=flag, allow_fast=False
+                plane, jnp.int32(14), n=8, rdoq=flag
             )
             outs[flag] = (
                 len(entropy.encode_levels(np.asarray(o["levels"]))),
@@ -262,12 +262,3 @@ class TestClosedLoopRdoq:
         n = decode_sequence(str(tmp_path / "o.bin"),
                             str(tmp_path / "d.yuv"))
         assert n == 2
-
-    def test_rdoq_with_explicit_fast_kernel_rejected(self):
-        from nanohevc_tpu.models.wavefront import encode_plane_closed_loop
-
-        plane = jnp.asarray(_natural_plane(16, 16))
-        with pytest.raises(ValueError, match="rdoq"):
-            encode_plane_closed_loop(
-                plane, jnp.int32(22), n=8, rdoq=True, allow_fast=True
-            )

@@ -210,19 +210,3 @@ class TestEndToEnd:
             frame, EncoderConfig(**base, intra_smoothing=True)
         )
         assert b0 != b1
-
-    def test_fast_paths_gated(self):
-        from nanohevc_tpu.config import EncoderConfig
-        from nanohevc_tpu.models.all_intra import (
-            supports_fast_path,
-            supports_mode_search_fast_path,
-        )
-
-        cfg = EncoderConfig(block_size=8, qp=22, intra_smoothing=True)
-        assert not supports_fast_path(cfg, 8, 64, is_luma=True)
-        assert supports_fast_path(cfg, 4, 64, is_luma=False)  # chroma unaffected
-        cfg_ms = EncoderConfig(
-            block_size=8, qp=22, mode_set="all", decision="satd",
-            intra_smoothing=True,
-        )
-        assert not supports_mode_search_fast_path(cfg_ms, 8, 64, is_luma=True)

@@ -10,44 +10,13 @@ import pytest
 
 import jax.numpy as jnp
 
-from nanohevc_tpu import ref as oracle
-from nanohevc_tpu.models.wavefront import decode_plane, encode_plane_closed_loop
-
-
-def simulate_closed_loop(plane: np.ndarray, n: int, qp: int):
-    """Sequential per-block oracle simulation of the wavefront encode."""
-    h, w = plane.shape
-    recon = np.zeros((h, w), np.int32)
-    levels_out = []
-    modes_out = []
-    for y0 in range(0, h - n + 1, n):
-        for x0 in range(0, w - n + 1, n):
-            orig = plane[y0 : y0 + n, x0 : x0 + n].astype(np.int16)
-            top = (
-                np.full(n, 128, np.int16)
-                if y0 == 0
-                else recon[y0 - 1, x0 : x0 + n].astype(np.int16)
-            )
-            left = (
-                np.full(n, 128, np.int16)
-                if x0 == 0
-                else recon[y0 : y0 + n, x0 - 1].astype(np.int16)
-            )
-            dc = oracle.intra_dc_predict(top, left, n)
-            pl = oracle.intra_planar_predict(
-                top, left, int(top[-1]), int(left[-1]), n
-            )
-            e_dc = oracle.residual_energy(oracle.residual_block(orig, dc))
-            e_pl = oracle.residual_energy(oracle.residual_block(orig, pl))
-            pred, mode = (dc, 1) if e_dc <= e_pl else (pl, 0)
-            res = orig.astype(np.int32) - pred.astype(np.int32)
-            lvl = oracle.quantize(oracle.forward_transform(res), qp, n)
-            inv = oracle.inverse_transform(oracle.dequantize(lvl, qp, n))
-            rb = np.clip(pred.astype(np.int32) + inv, 0, 255)
-            recon[y0 : y0 + n, x0 : x0 + n] = rb
-            levels_out.append(lvl)
-            modes_out.append(mode)
-    return recon, np.stack(levels_out), np.asarray(modes_out)
+from nanohevc_tpu.models.wavefront import (
+    decode_plane,
+    encode_plane_closed_loop,
+    encode_planes_closed_loop,
+)
+from nanohevc_tpu.ops import scan_unpack
+from nanohevc_tpu.ref.encode import encode_plane_closed_loop as closed_loop_oracle
 
 
 class TestClosedLoopEncode:
@@ -57,11 +26,9 @@ class TestClosedLoopEncode:
         rng = np.random.default_rng(0)
         plane = rng.integers(0, 256, (4 * n, 6 * n)).astype(np.int32)
         out = encode_plane_closed_loop(jnp.asarray(plane), jnp.int32(20), n=n)
-        want_recon, want_levels, want_modes = simulate_closed_loop(plane, n, 20)
+        want_recon, want_levels, want_modes = closed_loop_oracle(plane, n, 20)
         assert np.array_equal(np.asarray(out["recon"]), want_recon)
         assert np.array_equal(np.asarray(out["modes"]), want_modes)
-        from nanohevc_tpu.ops import scan_unpack
-
         got_levels = np.asarray(scan_unpack(out["levels"]))
         assert np.array_equal(got_levels, want_levels)
 
@@ -79,301 +46,89 @@ class TestClosedLoopEncode:
         )
 
 
-class TestFusedKernelParity:
-    """The Pallas wavefront kernel vs the XLA scan, bit-for-bit."""
-
-    def _check(self, n, h, w, **kw):
-        rng = np.random.default_rng(5)
-        hi = 1 << kw.get("bit_depth", 8)
-        plane = jnp.asarray(rng.integers(0, hi, (h, w)).astype(np.int32))
-        fast = encode_plane_closed_loop(
-            plane, jnp.int32(24), n=n, allow_fast=True, **kw
-        )
-        slow = encode_plane_closed_loop(
-            plane, jnp.int32(24), n=n, allow_fast=False, **kw
-        )
-        for k in ("recon", "levels", "modes"):
-            assert np.array_equal(np.asarray(fast[k]), np.asarray(slow[k])), k
-
-    @pytest.mark.parametrize("n", [4, 8, 16, 32])
-    def test_sizes(self, n):
-        self._check(n, 3 * n, 4 * n)
-
-    def test_dst_4x4(self):
-        self._check(4, 16, 24, use_dst=True)
-
-    def test_10bit(self):
-        self._check(8, 24, 32, bit_depth=10)
-
-    def test_dequant_rescale(self):
-        self._check(8, 24, 32, dequant_rescale=True)
-
-    def test_batched_matches_per_frame(self):
-        from nanohevc_tpu.models.wavefront import encode_planes_closed_loop
-
-        rng = np.random.default_rng(6)
-        planes = jnp.asarray(rng.integers(0, 256, (3, 24, 40)).astype(np.int32))
-        batched = encode_planes_closed_loop(planes, jnp.int32(22), n=8)
-        for i in range(3):
-            one = encode_plane_closed_loop(planes[i], jnp.int32(22), n=8)
-            for k in ("recon", "levels", "modes"):
-                assert np.array_equal(
-                    np.asarray(batched[k][i]), np.asarray(one[k])
-                ), (k, i)
+# (n, h, w, qp, mode_set, options) — block sizes 4-32, the 4x4 DST-VII
+# luma rule, 10-bit, the dequant rescale, QP extremes and geometries
+# whose block grid is tall, one block thick or not aligned at all.
+ORACLE_CASES = [
+    pytest.param(4, 16, 24, 24, "dc_planar", {"use_dst": True}, id="n4-dst"),
+    pytest.param(4, 16, 20, 30, "dc_planar", {}, id="n4-dct"),
+    pytest.param(8, 24, 32, 24, "dc_planar", {}, id="n8"),
+    pytest.param(16, 48, 64, 24, "dc_planar", {}, id="n16"),
+    pytest.param(32, 96, 128, 24, "dc_planar", {}, id="n32"),
+    pytest.param(8, 24, 32, 0, "dc_planar", {}, id="n8-qp0"),
+    pytest.param(8, 24, 32, 51, "dc_planar", {}, id="n8-qp51"),
+    pytest.param(8, 24, 32, 26, "dc_planar", {"bit_depth": 10}, id="n8-10bit"),
+    pytest.param(4, 16, 24, 30, "dc_planar",
+                 {"bit_depth": 10, "use_dst": True}, id="n4-dst-10bit"),
+    pytest.param(8, 24, 32, 28, "dc_planar", {"dequant_rescale": True},
+                 id="n8-rescale"),
+    pytest.param(16, 32, 48, 28, "dc_planar", {"dequant_rescale": True},
+                 id="n16-rescale"),
+    pytest.param(8, 37, 45, 28, "dc_planar", {}, id="n8-nonaligned"),
+    pytest.param(8, 64, 16, 35, "dc_planar", {}, id="n8-tall"),
+    pytest.param(8, 8, 64, 22, "dc_planar", {}, id="n8-one-row"),
+    pytest.param(4, 16, 24, 24, "all", {"use_dst": True}, id="all-n4-dst"),
+    pytest.param(8, 24, 40, 24, "all", {}, id="all-n8"),
+    pytest.param(16, 48, 64, 27, "all", {}, id="all-n16"),
+    pytest.param(32, 64, 96, 30, "all", {}, id="all-n32"),
+    pytest.param(4, 24, 24, 30, "all",
+                 {"bit_depth": 10, "dequant_rescale": True}, id="all-n4-10bit-rescale"),
+    pytest.param(8, 61, 70, 28, "all", {}, id="all-n8-nonaligned"),
+]
 
 
-def simulate_closed_loop_modes(plane: np.ndarray, n: int, qp: int,
-                               use_dst: bool = False):
-    """Sequential per-block 35-mode oracle of the closed-loop encode.
-
-    Walks anti-diagonals (the wavefront order), building each block's
-    2N+1 top/left reference arrays from the partially-reconstructed
-    plane under the closed loop's availability rule: same-diagonal
-    neighbors (top-right / below-left extensions) read as zeros, frame
-    edges replicate the last reconstructed sample, missing sides fill
-    with 128.  Writes a diagonal's reconstructions only after encoding
-    the whole diagonal (blocks on one diagonal never see each other).
-    Decision = min SATD over [planar, DC, angular 2-34], ties to the
-    lowest mode index — decide_modes("all", "satd") semantics.
-    """
-    h, w = plane.shape
-    nby, nbx = h // n, w // n
-    from nanohevc_tpu.ref.metrics import hadamard_matrix
-
-    recon = np.zeros((h, w), np.int32)
-    hmat = hadamard_matrix(n)
-
-    def satd(d):
-        return int(np.abs(hmat @ d.astype(np.int64) @ hmat.T).sum())
-
-    levels = np.zeros((nby * nbx, n, n), np.int32)
-    modes = np.zeros(nby * nbx, np.int32)
-    for d in range(nby + nbx - 1):
-        writes = []
-        for by in range(max(0, d - nbx + 1), min(nby, d + 1)):
-            bx = d - by
-            y0, x0 = by * n, bx * n
-            orig = plane[y0 : y0 + n, x0 : x0 + n].astype(np.int32)
-            top = np.zeros(2 * n + 1, np.int32)
-            left = np.zeros(2 * n + 1, np.int32)
-            corner = (
-                128 if by == 0 or bx == 0 else int(recon[y0 - 1, x0 - 1])
-            )
-            if by == 0:
-                top[:] = 128
-            else:
-                top[0] = corner
-                top[1 : n + 1] = recon[y0 - 1, x0 : x0 + n]
-                if bx == nbx - 1:
-                    top[n + 1 :] = top[n]        # frame-right replication
-                else:
-                    top[n + 1 :] = recon[y0 - 1, x0 + n : x0 + 2 * n]
-            if bx == 0:
-                left[:] = 128
-            else:
-                left[0] = corner
-                left[1 : n + 1] = recon[y0 : y0 + n, x0 - 1]
-                if by == nby - 1:
-                    left[n + 1 :] = left[n]      # frame-bottom replication
-                else:
-                    left[n + 1 :] = recon[y0 + n : y0 + 2 * n, x0 - 1]
-            cand = [
-                oracle.intra_planar_predict(
-                    top[1:], left[1:], int(top[n]), int(left[n]), n
-                ),
-                oracle.intra_dc_predict(top[1 : n + 1], left[1 : n + 1], n),
-            ] + [
-                oracle.intra_angular_predict(top, left, corner, m, n)
-                for m in range(2, 35)
-            ]
-            costs = [satd(orig - p.astype(np.int32)) for p in cand]
-            mode = int(np.argmin(costs))         # ties -> lowest index
-            pred = cand[mode].astype(np.int32)
-            lvl = oracle.quantize(
-                oracle.forward_transform(orig - pred, use_dst=use_dst),
-                qp, n,
-            )
-            inv = oracle.inverse_transform(
-                oracle.dequantize(lvl, qp, n), use_dst=use_dst
-            )
-            rb = np.clip(pred + inv, 0, 255)
-            writes.append((y0, x0, rb))
-            bi = by * nbx + bx
-            levels[bi] = lvl
-            modes[bi] = mode
-        for y0, x0, rb in writes:
-            recon[y0 : y0 + n, x0 : x0 + n] = rb
-    return recon, levels, modes
+def _oracle_plane(seed, h, w, bit_depth=8):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 1 << bit_depth, (h, w)).astype(np.int32)
 
 
-@pytest.mark.slow
-class TestModeSearchKernelParity:
-    """The fused 35-mode wavefront kernel vs the XLA scan, bit-for-bit.
-
-    The XLA scan is itself pinned to the sequential per-block oracle
-    (TestClosedLoopEncode), so equality here chains to the oracle.
-
-    slow: interpret-mode kernel runs are XLA-CPU compile-bound
-    (30-170 s each); the fast profile keeps the XLA-scan-vs-oracle
-    contract (TestClosedLoopEncode) and the driver bench gates the
-    kernel-vs-scan equality on the real chip every round.
-    """
-
-    def _check(self, n, h, w, b=1, qp=24, **kw):
-        from nanohevc_tpu.models.wavefront import encode_planes_closed_loop
-
-        rng = np.random.default_rng(n * h + w)
-        hi = 1 << kw.get("bit_depth", 8)
-        planes = jnp.asarray(rng.integers(0, hi, (b, h, w)).astype(np.int32))
-        sweep = dict(mode_set="all", decision="satd")
-        fast = encode_planes_closed_loop(
-            planes, jnp.int32(qp), n=n, allow_fast=True, **sweep, **kw
-        )
-        slow = encode_planes_closed_loop(
-            planes, jnp.int32(qp), n=n, allow_fast=False, **sweep, **kw
-        )
-        for k in ("recon", "levels", "modes"):
-            assert np.array_equal(np.asarray(fast[k]), np.asarray(slow[k])), k
-
-    @pytest.mark.parametrize("n", [4, 8, 16, 32])
-    def test_sizes(self, n):
-        self._check(n, 3 * n, 4 * n)
-
-    def test_tall_frame(self):
-        """nby > nbx exercises the left-edge/extension masks."""
-        self._check(8, 64, 32, qp=35)
-
-    def test_single_block_row_and_col(self):
-        self._check(8, 8, 64)
-        self._check(8, 64, 8)
-
-    def test_non_aligned_dims(self):
-        """Conformance-window padding feeds the kernel aligned planes."""
-        self._check(8, 61, 70, qp=28)
-
-    def test_dst_4x4(self):
-        self._check(4, 40, 48, use_dst=True)
-
-    def test_10bit_rescale(self):
-        self._check(4, 24, 24, qp=30, bit_depth=10, dequant_rescale=True)
-
-    def test_batched(self):
-        self._check(8, 64, 32, b=2, qp=35)
-
-    @pytest.mark.parametrize(
-        "group,lanes,wrap,b",
-        [
-            (2, 2, 1, 4),    # m > 1: lane-tiled frames stay isolated
-            (2, 3, 1, 6),    # odd lane factor
-            (1, 1, 3, 3),    # F > 1: wrapped stream, one slot
-            (2, 1, 2, 4),    # wrap x sublane groups
-            (2, 2, 2, 8),    # all three axes at once
-        ],
+def _assert_matches_oracle(out, plane, n, qp, mode_set, kw):
+    want_recon, want_levels, want_modes = closed_loop_oracle(
+        plane, n, qp, mode_set=mode_set, **kw
     )
-    def test_grouped_lane_packing_and_wrap(self, group, lanes, wrap, b):
-        """The (g sublane, m lane, F wrap) batch factorization is
-        bit-exact: frames tiled back to back along lanes must stay
-        isolated (frame-local slot masks), and frames streamed through
-        one slot in time (the wrapped wavefront's nbx-periodic edge
-        masks) must reproduce the per-frame schedule exactly — the
-        real-TPU layout is g=8, m,F = auto split of B/8."""
-        from nanohevc_tpu.kernels.wavefront_mode_grouped import (
-            wavefront_mode_search_raster_grouped,
-        )
-        from nanohevc_tpu.models.wavefront import encode_planes_closed_loop
-        from nanohevc_tpu import ops
+    assert np.array_equal(np.asarray(out["recon"]), want_recon)
+    assert np.array_equal(np.asarray(out["modes"]), want_modes)
+    got_levels = np.asarray(scan_unpack(out["levels"], modes=out["modes"]))
+    assert np.array_equal(got_levels, want_levels)
 
-        n, h, w = 8, 48, 64
-        nby, nbx = h // n, w // n
-        rng = np.random.default_rng(group * 100 + wrap * 10 + b)
-        planes = jnp.asarray(
-            rng.integers(0, 256, (b, h, w)).astype(np.int32)
-        )
-        blocks = jnp.stack([ops.tile_plane(p, n) for p in planes])
-        rec, lev, modes = wavefront_mode_search_raster_grouped(
-            blocks, jnp.int32(30), n=n, nby=nby, nbx=nbx,
-            group=group, lanes=lanes, wrap=wrap,
-        )
-        want = encode_planes_closed_loop(
-            planes, jnp.int32(30), n=n, mode_set="all", decision="satd",
-            allow_fast=False,
-        )
-        got_rec = jnp.stack([ops.untile_plane(f, h, w) for f in rec])
-        assert np.array_equal(np.asarray(got_rec), np.asarray(want["recon"]))
-        assert np.array_equal(
-            np.asarray(modes), np.asarray(want["modes"])
-        )
 
-    @pytest.mark.parametrize("group,lanes,wrap,b", [
-        (1, 1, 1, 1),        # plain 16x16 single frame
-        (2, 1, 2, 4),        # sublane groups + wrap (the bench shape)
-    ])
-    def test_grouped_16x16(self, group, lanes, wrap, b):
-        """Round-5 extension: the grouped closed-loop kernel at n=16
-        (sublane group 2 vregs tall, same algebra) is bit-exact vs the
-        XLA scan, including under the wrapped schedule."""
-        from nanohevc_tpu.kernels.wavefront_mode_grouped import (
-            wavefront_mode_search_raster_grouped,
-        )
-        from nanohevc_tpu.models.wavefront import encode_planes_closed_loop
-        from nanohevc_tpu import ops
+class TestXlaScanVsOracle:
+    """The closed-loop XLA scan == the sequential per-block oracle
+    (nanohevc_tpu.ref.encode), bit-for-bit, over the configurations the
+    encoder serves."""
 
-        n, h, w = 16, 64, 96
-        nby, nbx = h // n, w // n
-        rng = np.random.default_rng(16 + b)
-        planes = jnp.asarray(
-            rng.integers(0, 256, (b, h, w)).astype(np.int32)
+    @pytest.mark.parametrize("n,h,w,qp,mode_set,kw", ORACLE_CASES)
+    def test_single_frame(self, n, h, w, qp, mode_set, kw):
+        plane = _oracle_plane(n * h + w, h, w, kw.get("bit_depth", 8))
+        out = encode_plane_closed_loop(
+            jnp.asarray(plane), jnp.int32(qp), n=n, mode_set=mode_set,
+            decision="energy" if mode_set == "dc_planar" else "satd", **kw
         )
-        blocks = jnp.stack([ops.tile_plane(p, n) for p in planes])
-        rec, lev, modes = wavefront_mode_search_raster_grouped(
-            blocks, jnp.int32(27), n=n, nby=nby, nbx=nbx,
-            group=group, lanes=lanes, wrap=wrap,
-        )
-        want = encode_planes_closed_loop(
-            planes, jnp.int32(27), n=n, mode_set="all", decision="satd",
-            allow_fast=False,
-        )
-        got_rec = jnp.stack([ops.untile_plane(f, h, w) for f in rec])
-        assert np.array_equal(np.asarray(got_rec), np.asarray(want["recon"]))
-        assert np.array_equal(np.asarray(modes), np.asarray(want["modes"]))
-        got_lv = jnp.stack([ops.scan_pack(f, "diag") for f in lev])
-        assert np.array_equal(np.asarray(got_lv), np.asarray(want["levels"]))
+        _assert_matches_oracle(out, plane, n, qp, mode_set, kw)
 
-    @pytest.mark.parametrize("n,dst", [(4, True), (8, False)])
-    def test_matches_sequential_oracle(self, n, dst):
-        """Both paths (fused kernel and XLA scan) == the sequential
-        per-block 35-mode oracle, bit-for-bit — the direct ground-truth
-        pin, independent of the open-loop decide_modes fuzzing."""
-        rng = np.random.default_rng(35 + n)
-        h, w = 4 * n, 6 * n
-        plane = rng.integers(0, 256, (h, w)).astype(np.int32)
-        want_recon, want_levels, want_modes = simulate_closed_loop_modes(
-            plane, n, 24, use_dst=dst
+    @pytest.mark.parametrize("mode_set", ["dc_planar", "all"])
+    def test_batch(self, mode_set):
+        """Frames of a batch interleave their diagonals in one scan and
+        stay independent: each equals its own sequential encode."""
+        planes = np.stack([_oracle_plane(60 + i, 24, 40) for i in range(3)])
+        out = encode_planes_closed_loop(
+            jnp.asarray(planes), jnp.int32(22), n=8, mode_set=mode_set,
+            decision="energy" if mode_set == "dc_planar" else "satd",
         )
-        from nanohevc_tpu.ops import scan_unpack
-
-        for fast in (True, False):
-            out = encode_plane_closed_loop(
-                jnp.asarray(plane), jnp.int32(24), n=n, mode_set="all",
-                decision="satd", use_dst=dst, allow_fast=fast,
+        for i in range(3):
+            _assert_matches_oracle(
+                {k: out[k][i] for k in ("recon", "levels", "modes")},
+                planes[i], 8, 22, mode_set, {},
             )
-            assert np.array_equal(np.asarray(out["recon"]), want_recon), fast
-            assert np.array_equal(np.asarray(out["modes"]), want_modes), fast
-            got_levels = np.asarray(
-                scan_unpack(out["levels"], modes=out["modes"])
-            )
-            assert np.array_equal(got_levels, want_levels), fast
 
-    def test_decode_round_trip(self):
-        """decode_plane reproduces the kernel's recon from (levels,
-        modes) alone — the defining closed-loop property, over the full
-        35-mode decision range."""
-        rng = np.random.default_rng(77)
+    def test_mode_search_decode_round_trip(self):
+        """decode_plane reproduces the 35-mode encode's recon from
+        (levels, modes) alone — the defining closed-loop property, over
+        the full mode range."""
         h, w = 48, 64
-        plane = jnp.asarray(rng.integers(0, 256, (h, w)).astype(np.int32))
+        plane = jnp.asarray(_oracle_plane(77, h, w))
         enc = encode_plane_closed_loop(
             plane, jnp.int32(26), n=8, mode_set="all", decision="satd",
-            allow_fast=True,
         )
         assert len(np.unique(np.asarray(enc["modes"]))) > 2  # real sweep
         dec = decode_plane(
@@ -596,35 +351,3 @@ class TestFrameCodec:
         text = capsys.readouterr().out
         assert "decodable" in text and "Decoded:" in text
         assert out_path.read_bytes() == recon_path.read_bytes()
-
-
-class TestKernelAutoSelect:
-    """Pin the measured crossover assumption: the fused wavefront
-    kernel wins on single-frame latency only; at batch >= 2 the
-    vmapped XLA scan is faster (docs/performance.md), so auto-select
-    must route b==1 to the kernel and b>=2 to the XLA path.  bench.py
-    row 'wavefront single-frame' measures both sides each round — if
-    the crossover moves, flip this pin together with the auto-select
-    in encode_planes_closed_loop."""
-
-    def _routes_to_kernel(self, b, monkeypatch):
-        import nanohevc_tpu.kernels.wavefront_slab as wfs
-        from nanohevc_tpu.models.wavefront import encode_planes_closed_loop
-
-        called = {"kernel": False}
-        orig = wfs.wavefront_encode_blocks
-
-        def spy(*a, **k):
-            called["kernel"] = True
-            return orig(*a, **k)
-
-        monkeypatch.setattr(wfs, "wavefront_encode_blocks", spy)
-        planes = jnp.zeros((b, 16, 24), jnp.int32)
-        encode_planes_closed_loop(planes, jnp.int32(22), n=8)
-        return called["kernel"]
-
-    def test_single_frame_uses_kernel(self, monkeypatch):
-        assert self._routes_to_kernel(1, monkeypatch)
-
-    def test_batch_uses_xla_scan(self, monkeypatch):
-        assert not self._routes_to_kernel(2, monkeypatch)
